@@ -1,17 +1,16 @@
-"""lightweaver_tpu: a TPU-native NLTE radiative transfer framework.
+"""lightweaver_tpu: a JAX-native NLTE radiative transfer framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 Lightweaver framework (Osborne & Milic 2021): MALI NLTE synthesis for
 optically-thick spectral lines in stratified atmospheres, batched and
-sharded across TPU meshes.
+sharded across device meshes (NVIDIA GPUs).
 
 Like the reference (f64 throughout), the default working precision is
 float64: MALI's Psi*-preconditioning subtracts nearly-equal large
 quantities (Ieff = I - Psi eta) in optically-thick regions, which makes
 plain f32 stall around dJ ~ 1e-2.  x64 is enabled at import (disable
-with LIGHTWEAVER_TPU_NO_X64=1 to run pure-f32 experiments).  On the TPU
-backend f64 lowers to emulated elementwise/matmul ops, which the fused
-iteration tolerates well; an f32 fast path is kept for synthesis-only
+with LIGHTWEAVER_TPU_NO_X64=1 to run pure-f32 experiments).  An f32
+state (dtype=jnp.float32, f64 accumulation) is kept for synthesis-only
 workloads.
 """
 import os as _os

@@ -1,20 +1,24 @@
 """Benchmark/autotune: time the configurable kernel variants on the
 standard FALC-500 H+Ca problem and persist the fastest to lightweaverrc.
 
-The TPU analogue of the reference's SIMD-implementation autotuner
+The analogue of the reference's SIMD-implementation autotuner
 (ref: /root/reference/lightweaver/benchmark.py:19-113): instead of
 scalar/SSE2/AVX2/AVX512 plugins, the tunables are the depth-recurrence
-evaluation mode and the working precision.
+evaluation mode, the working precision and the Gamma accumulation
+contract.  Timings are only meaningful on the GPU, so `benchmark()`
+refuses any other device.
 """
+import sys
 import time
-from typing import Optional
 
 import numpy as np
 
 
-def _build_ctx(Nspace=500, Nrays=5, dtype=None, recurrenceMode='scan'):
-    import jax.numpy as jnp
-
+def falc_ctx(Nspace=500, Nrays=5, dtype=None, recurrenceMode='scan',
+             **kw):
+    """FAL-C interpolated in log column mass to ``Nspace`` depths, H
+    6-level + Ca II active, ``Nrays`` rays: the problem the compiled
+    reference's autotuner times (Nlam = 1046)."""
     from .atmosphere import Atmosphere
     from .atomic_set import RadiativeSet
     from .context import Context
@@ -41,108 +45,89 @@ def _build_ctx(Nspace=500, Nrays=5, dtype=None, recurrenceMode='scan'):
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
     return Context(atmos, spect, eqPops, dtype=dtype,
-                   recurrenceMode=recurrenceMode)
+                   recurrenceMode=recurrenceMode, **kw)
 
 
-def _time_ctx(ctx, Niter):
+def require_gpu():
+    """The default JAX device, which must be a GPU: timings of the CPU
+    backend are not timings of the card."""
     import jax
-    for _ in range(2):
-        ctx.formal_sol_gamma_matrices()
-    jax.block_until_ready(ctx.J)
-    t0 = time.perf_counter()
-    for _ in range(Niter):
-        ctx.formal_sol_gamma_matrices()
-    jax.block_until_ready(ctx.J)
-    return (time.perf_counter() - t0) / Niter
+    dev = jax.devices()[0]
+    if dev.platform != 'gpu':
+        raise RuntimeError(f'benchmarks run on a GPU; JAX found '
+                           f'{dev.platform!r}')
+    return dev
+
+
+def race_iterations(ctxs, nIter=20, reps=3, warmup=2):
+    """Time several contexts with INTERLEAVED blocks of ``nIter``
+    `formal_sol_gamma_matrices` calls (every contender sees the same
+    drift of clocks and power) and return {name: best seconds/iter}."""
+    import jax
+    for ctx in ctxs.values():
+        for _ in range(warmup):
+            ctx.formal_sol_gamma_matrices()
+        jax.block_until_ready(ctx.J)
+    best = {name: np.inf for name in ctxs}
+    for _ in range(reps):
+        for name, ctx in ctxs.items():
+            t0 = time.perf_counter()
+            for _ in range(nIter):
+                u = ctx.formal_sol_gamma_matrices()
+            jax.block_until_ready(ctx.J)
+            best[name] = min(best[name],
+                             (time.perf_counter() - t0) / nIter)
+            if not np.isfinite(u.dJMax):
+                raise FloatingPointError(f'{name}: non-finite dJ')
+    return best
 
 
 def benchmark(Niter: int = 20, writeConfig: bool = False,
-              verbose: bool = True, schemes: Optional[list] = None) -> dict:
-    """Race every (recurrence, precision) kernel variant, the
-    Gamma-accumulation contract, and the iteration schemes (XLA /
-    fused lambda-step / fused-Pallas Gamma) at the winning variant;
-    optionally persist the winners to the user config.  The TPU-form of
-    the reference autotuner racing ALL of its per-SIMD iteration-scheme
-    plugins and persisting the fastest
-    (ref: /root/reference/lightweaver/benchmark.py:19-113)."""
-    import jax
+              verbose: bool = True) -> dict:
+    """Race every (recurrence, precision) variant, then the Gamma
+    accumulation contract at the winner; optionally persist the winners
+    to the user config.  Progress goes to stderr."""
     import jax.numpy as jnp
 
-    onTpu = jax.devices()[0].platform not in ('cpu',)
-    variants = [
-        ('scan', 'f64', None),
-        ('parallel', 'f64', None),
-        ('blocked', 'f64', None),
-        ('scan', 'mixed', jnp.float32),
-        ('parallel', 'mixed', jnp.float32),
-        ('blocked', 'mixed', jnp.float32),
-    ]
-    if onTpu:
-        # compiled Mosaic depth sweep: f32 working dtype only (Mosaic
-        # has no f64 vectors); off-TPU it would race the interpreter
-        variants.append(('pallas', 'mixed', jnp.float32))
-    results = {}
-    for mode, prec, dtype in variants:
-        ctx = _build_ctx(dtype=dtype, recurrenceMode=mode)
-        wall = _time_ctx(ctx, Niter)
-        results[(mode, prec)] = wall
-        if verbose:
-            print(f'{mode}/{prec}: {wall * 1e3:.1f} ms/iter')
+    from .compile_cache import setup_compile_cache
+    from .context import RECURRENCE_MODES
 
+    require_gpu()
+    setup_compile_cache()
+    precisions = {'f64': None, 'mixed': jnp.float32}
+    ctxs = {(mode, prec): falc_ctx(dtype=dt, recurrenceMode=mode)
+            for mode in RECURRENCE_MODES for prec, dt in precisions.items()}
+    results = race_iterations(ctxs, nIter=Niter)
+    if verbose:
+        for (mode, prec), wall in results.items():
+            print(f'{mode}/{prec}: {wall * 1e3:.3f} ms/iter',
+                  file=sys.stderr)
     best = min(results, key=results.get)
-    bestDtype = jnp.float32 if best[1] == 'mixed' else None
 
     # Gamma lambda-accumulation contract at the winning variant (only
-    # distinct under mixed precision): 'blocked' trades the
-    # f64-emulated reductions for working-dtype block partials at a
-    # slightly raised dJ floor (see CLAUDE.md / test_gamma_accum.py)
+    # distinct under mixed precision): 'blocked' keeps working-dtype
+    # block partials at a slightly raised dJ floor (test_gamma_accum.py)
     bestAccum = 'exact'
     accumResults = {'exact': results[best]}
     if best[1] == 'mixed':
-        ctx = _build_ctx(dtype=bestDtype, recurrenceMode=best[0])
-        ctx._swap_cfg(gammaAccum='blocked')
-        accumResults['blocked'] = _time_ctx(ctx, Niter)
-        if verbose:
-            print(f"gammaAccum=blocked [{best[0]}/{best[1]}]: "
-                  f"{accumResults['blocked'] * 1e3:.1f} ms/iter")
+        ctx = falc_ctx(dtype=jnp.float32, recurrenceMode=best[0],
+                       gammaAccum='blocked')
+        accumResults.update(race_iterations(
+            {'exact': ctxs[best], 'blocked': ctx}, nIter=Niter))
         bestAccum = min(accumResults, key=accumResults.get)
-
-    # Scheme race at the winning variant.  The Pallas schemes are
-    # compiled Mosaic: only meaningful on a real TPU (interpret mode
-    # elsewhere would race emulation, not the kernel).
-    if schemes is None:
-        schemes = (['mali_full_precond', 'mali_full_precond_fused',
-                    'mali_full_precond_pallas']
-                   if onTpu else ['mali_full_precond'])
-    schemeResults = {'mali_full_precond': accumResults[bestAccum]}
-    for scheme in schemes:
-        if scheme in schemeResults:
-            continue
-        ctx = _build_ctx(dtype=bestDtype, recurrenceMode=best[0])
-        if bestAccum != 'exact':
-            ctx._swap_cfg(gammaAccum=bestAccum)
-        try:
-            ctx.set_fs_iter_scheme(scheme)
-        except ValueError as e:
-            if verbose:
-                print(f'{scheme}: unsupported ({e})')
-            continue
-        wall = _time_ctx(ctx, Niter)
-        schemeResults[scheme] = wall
         if verbose:
-            print(f'{scheme} [{best[0]}/{best[1]}]: '
-                  f'{wall * 1e3:.1f} ms/iter')
-    bestScheme = min(schemeResults, key=schemeResults.get)
+            print(f"gammaAccum [{best[0]}/{best[1]}]: "
+                  + ' '.join(f'{k}={v * 1e3:.3f} ms/iter'
+                             for k, v in accumResults.items()),
+                  file=sys.stderr)
 
     if verbose:
-        print(f'fastest: {best[0]}/{best[1]}/{bestAccum}/{bestScheme}')
+        print(f'fastest: {best[0]}/{best[1]}/{bestAccum}', file=sys.stderr)
     if writeConfig:
         from .config import params
         params['RecurrenceMode'] = best[0]
         params['Precision'] = best[1]
         params['GammaAccum'] = bestAccum
-        params['IterationScheme'] = bestScheme
         params.save()
     return {'timings': results, 'best': best,
-            'accumTimings': accumResults, 'bestAccum': bestAccum,
-            'schemeTimings': schemeResults, 'bestScheme': bestScheme}
+            'accumTimings': accumResults, 'bestAccum': bestAccum}

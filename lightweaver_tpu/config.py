@@ -2,9 +2,11 @@
 
 ref: /root/reference/lightweaver/config.py:11-106.  The reference's
 SIMD-implementation key is replaced by precision/recurrence knobs (the
-TPU analogue of picking a kernel variant); the solver registries are
+analogue of picking a kernel variant); the solver registries are
 plain dicts of jittable functions instead of dlopen plugin managers
-(ref: /root/reference/Source/LwFormalInterface.hpp:35-145).
+(ref: /root/reference/Source/LwFormalInterface.hpp:35-145).  Values are
+validated where they are used: an unknown recurrence mode or iteration
+scheme raises a ValueError in Context.
 """
 import os
 from pathlib import Path
@@ -14,8 +16,10 @@ _DEFAULTS = {
     'FormalSolver1d': 'piecewise_bezier3_1d',
     'FormalSolver2d': 'piecewise_linear_2d',
     'IterationScheme': 'mali_full_precond',
-    'RecurrenceMode': 'scan',          # 'scan' | 'parallel' (assoc. scan)
+    # 'scan' | 'parallel' | 'blocked' (context.RECURRENCE_MODES)
+    'RecurrenceMode': 'scan',
     'Precision': 'f64',                # 'f64' | 'mixed' (f32 + f64 accum)
+    'GammaAccum': 'exact',             # 'exact' | 'blocked' (mixed only)
 }
 
 

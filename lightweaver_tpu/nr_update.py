@@ -1,6 +1,6 @@
 """Newton-Raphson charge conservation: coupled (populations, ne) update.
 
-TPU-native re-design of the reference's split Python/C++ implementation
+Accelerator-native re-design of the reference's split Python/C++ implementation
 (ref: /root/reference/lightweaver/nr_update.py:7-106,
  /root/reference/Source/UpdatePopulations.cpp:230-394): the per-depth
 (sum(Nlevel)+1)^2 Jacobian is assembled as one dense batched tensor over
@@ -62,7 +62,8 @@ def build_nr_fn(Nlevels: Sequence[int], stagesList: Sequence[np.ndarray],
                 Fa = -Gn
             Fa = Fa.at[Nl - 1].set(jnp.sum(n, axis=0) - nTotals[a])
             F = F.at[:, offset:offset + Nl].set(Fa.T)
-            eleContrib = eleContrib + jnp.einsum('l,lk->k', stages, n)
+            eleContrib = eleContrib + jnp.einsum(
+                'l,lk->k', stages, n, precision=jax.lax.Precision.HIGHEST)
 
             # Jacobian block [Nk, Nl, Nl]
             blk = -jnp.moveaxis(G, -1, 0)
@@ -79,7 +80,8 @@ def build_nr_fn(Nlevels: Sequence[int], stagesList: Sequence[np.ndarray],
                     entry = -theta * dt * entry
                 neCol = neCol.at[i].add(entry)
             if dCs is not None:
-                entry = -jnp.einsum('ilk,lk->ik', dCs[a], n)
+                entry = -jnp.einsum('ilk,lk->ik', dCs[a], n,
+                                    precision=jax.lax.Precision.HIGHEST)
                 if timeDep:
                     entry = -theta * dt * entry
                 neCol = neCol + entry

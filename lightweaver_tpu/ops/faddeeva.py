@@ -4,14 +4,13 @@ The reference implementation uses the MIT Faddeeva library
 (ref: /root/reference/Source/Faddeeva.cc, /root/reference/Source/LwMisc.hpp:13-27),
 accurate to ~1e-13.  Here we use Weideman's (1994, SIAM J. Numer. Anal. 31,
 1497) single rational approximation with N=48 terms: one branch-free complex
-Horner evaluation, which maps far better onto the TPU VPU than the MIT
-library's region switching, and achieves <1e-9 relative accuracy in the
+Horner evaluation, which vectorises far better than the MIT library's
+region switching, and achieves <1e-9 relative accuracy in the
 Voigt H over the physically relevant damping range (a >= 1e-5; see
 tests/test_faddeeva.py for the golden comparison against scipy.wofz).
 
-All arithmetic is performed on explicit (real, imag) pairs: TPU backends
-do not implement complex primitives, and pair arithmetic lowers to plain
-VPU ops.
+All arithmetic is performed on explicit (real, imag) pairs, which lower
+to plain fused elementwise ops.
 """
 import numpy as np
 
@@ -35,7 +34,7 @@ def _weideman_coeffs(N):
 
 
 # Stored as Python floats: numpy scalars are strongly typed in JAX and
-# would silently promote f32 inputs to (TPU-emulated) f64 under x64;
+# would silently promote f32 inputs to f64 under x64;
 # Python floats are weak-typed and follow the input dtype.
 _WEIDEMAN_L, _A_ARR = _weideman_coeffs(_N_WEIDEMAN)
 _WEIDEMAN_L = float(_WEIDEMAN_L)
@@ -97,8 +96,8 @@ def _wofz_parts(x, y):
 def wofz(z):
     """Faddeeva function w(z) = exp(-z^2) erfc(-iz) for Im(z) >= 0.
 
-    Takes/returns complex arrays; prefer voigt_H / voigt_HF on TPU, where
-    complex dtypes are not supported by the backend.
+    Takes/returns complex arrays; the package itself uses the real-pair
+    voigt_H / voigt_HF.
     """
     import jax
     wr, wi = _wofz_parts(jnp.real(z), jnp.imag(z))

@@ -1,6 +1,6 @@
 """Batched 1D short-characteristics formal solvers.
 
-TPU-native design: the reference's per-ray sequential C++ solvers
+Accelerator-native design: the reference's per-ray sequential C++ solvers
 (ref: /root/reference/Source/FormalScalar.cpp:136-667) are re-expressed as
 
   1. dense, batched per-depth-point coefficient computation: every solver
@@ -35,8 +35,8 @@ def w2(dtau):
     ref: /root/reference/Source/LwInternal.hpp:90-110
     """
     # scalar bounds in the input dtype: Python floats passed to
-    # jnp.clip/jnp.where bind as f64 constants under x64, and Mosaic
-    # cannot lower the resulting scalar f64->f32 trunc inside kernels
+    # jnp.clip/jnp.where bind as f64 constants under x64, which would
+    # put f64 converts into the f32 program
     one = jnp.asarray(1.0, dtau.dtype)
     third = 1.0 / 3.0
     small = dtau < 5.0e-4
@@ -79,7 +79,7 @@ def bezier3_coeffs(dt):
     # Guard divisions/exp in unselected branches: the mid branch needs dt
     # clipped into [5e-2, 30]; the asymptotic branch must use the TRUE dt
     # (only guarded against division by zero from below).
-    # dtype-matched clip bounds (see w2: Mosaic scalar f64 trunc)
+    # dtype-matched clip bounds (see w2)
     one = jnp.asarray(1.0, dt.dtype)
     dt_m = jnp.clip(dt, 5e-2 * one, 30.0 * one)
     dt2_m = dt_m * dt_m
@@ -173,11 +173,6 @@ def _affine_solve(A, b, mode='scan'):
 
     A, b: [..., N] in sweep order.  Returns I: [..., N].
     """
-    if mode == 'pallas':
-        # the fused Mosaic sweep applies at the iteration level
-        # (ops/pallas_sweep.py); standalone solves (compute_rays, PRD
-        # subset) fall back to the blocked scan
-        mode = 'blocked'
     if mode == 'scan':
         def step(I_prev, ab):
             a, bb = ab

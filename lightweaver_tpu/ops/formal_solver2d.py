@@ -1,6 +1,6 @@
 """2D short-characteristics formal solver (x periodic, z stratified).
 
-TPU-native re-design of the reference's plane-by-plane sweep
+Accelerator-native re-design of the reference's plane-by-plane sweep
 (ref: /root/reference/Source/FormalScalar2d.cpp:434-706, intersection
 geometry :1188-1327):
 

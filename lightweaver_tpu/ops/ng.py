@@ -133,6 +133,7 @@ def device_ng_accelerate(hist, count, sol, Norder: int, Nperiod: int,
 
     Norder/Nperiod/Ndelay are static Python ints.  A non-finite LS solve
     falls back to the unaccelerated iterate, like the host class."""
+    import jax
     import jax.numpy as jnp
 
     from .linalg import solve_KxK_over_depth
@@ -154,7 +155,8 @@ def device_ng_accelerate(hist, count, sol, Norder: int, Nperiod: int,
         d0 = Delta[0]
         diff = Delta[1:] - d0[None, :]                  # [No, L]
         b = jnp.sum(weight * d0 * (-diff), axis=1)      # [No]
-        A = jnp.einsum('l,il,jl->ij', weight, diff, diff)
+        A = jnp.einsum('l,il,jl->ij', weight, diff, diff,
+                       precision=jax.lax.Precision.HIGHEST)
         coeffs = solve_KxK_over_depth(A[:, :, None], b[:, None])[:, 0]
         accel = sol + jnp.sum(
             coeffs[:, None] * (prev[1:No + 1] - prev[0][None, :]), axis=0)

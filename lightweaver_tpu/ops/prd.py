@@ -1,7 +1,7 @@
 """Partial frequency redistribution: Gouttebroze gII approximation and the
 angle-averaged scattering integral.
 
-TPU-native re-design of the reference PRD core
+Accelerator-native re-design of the reference PRD core
 (ref: /root/reference/Source/Prd.cpp:33-645): instead of per-depth loops
 with cached per-(k, la) ragged fine grids, the scattering integral is
 evaluated as one dense [Nk, W, Nfine] tensor with a static fine-grid

@@ -1,7 +1,7 @@
 """Full-Stokes polarised formal solution: 4x4 propagation matrix and the
 DELO-Bezier3 integrator.
 
-TPU-native re-design of the reference Stokes solver
+Accelerator-native re-design of the reference Stokes solver
 (ref: /root/reference/Source/FormalStokes.cpp:119-341): the per-step 4x4
 linear system I_k = Md^-1 (Ma I_{k-1} + rhs_k) has all of Md/Ma/rhs
 independent of I, so every matrix is precomputed as a dense batched
@@ -18,6 +18,9 @@ import jax.numpy as jnp
 
 from .formal_solver import _point_derivs, bezier3_coeffs
 from .linalg import batched_solve
+
+# f32 contractions must not drop to TF32 on the GPU
+_HI = jax.lax.Precision.HIGHEST
 
 
 def stokes_K(chi7):
@@ -93,8 +96,8 @@ def delo_bezier_stokes(chi7, S4, height, muz, I_upw, to_obs=True):
     alpha, beta, gamma, delta, edt = bezier3_coeffs(dt)
     eye = jnp.eye(4, dtype=chi7.dtype)
 
-    Ku2 = Ku @ Ku
-    K02 = K0 @ K0
+    Ku2 = jnp.matmul(Ku, Ku, precision=_HI)
+    K02 = jnp.matmul(K0, K0, precision=_HI)
     d = dt / 3.0 * (Ku2 + Ku - dKu) - Ku
     e = dt / 3.0 * (K02 + K0 - dK0) + K0
     Md = eye + beta * K0 + delta * e
@@ -102,8 +105,8 @@ def delo_bezier_stokes(chi7, S4, height, muz, I_upw, to_obs=True):
     Mb = alpha * eye + gamma * (eye - dt / 3.0 * Ku)
     Mc = beta * eye + delta * (eye + dt / 3.0 * K0)
 
-    rhs = (jnp.einsum('bnij,bnj->bni', Mb, Su)
-           + jnp.einsum('bnij,bnj->bni', Mc, S0)
+    rhs = (jnp.einsum('bnij,bnj->bni', Mb, Su, precision=_HI)
+           + jnp.einsum('bnij,bnj->bni', Mc, S0, precision=_HI)
            + dtau[..., None] / 3.0 * (gamma[..., 0] * dSu
                                       - delta[..., 0] * dS0))
 
@@ -116,7 +119,7 @@ def delo_bezier_stokes(chi7, S4, height, muz, I_upw, to_obs=True):
 
     def step(Iprev, Ab):
         Am, bm = Ab
-        Inew = jnp.einsum('bij,bj->bi', Am, Iprev) + bm
+        Inew = jnp.einsum('bij,bj->bi', Am, Iprev, precision=_HI) + bm
         return Inew, Inew
 
     _, Iseq = jax.lax.scan(step, I_upw,

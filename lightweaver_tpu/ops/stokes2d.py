@@ -29,7 +29,7 @@ import numpy as np
 
 from .formal_solver import w2
 from .linalg import batched_solve
-from .stokes import stokes_K
+from .stokes import _HI, stokes_K
 
 
 def _ring_affine_solve_mat(A, b):
@@ -39,15 +39,15 @@ def _ring_affine_solve_mat(A, b):
     def compose(u, v):
         Au, bu = u
         Av, bv = v
-        return (jnp.einsum('...ij,...jk->...ik', Av, Au),
-                jnp.einsum('...ij,...j->...i', Av, bu) + bv)
+        return (jnp.einsum('...ij,...jk->...ik', Av, Au, precision=_HI),
+                jnp.einsum('...ij,...j->...i', Av, bu, precision=_HI) + bv)
 
     As = jnp.moveaxis(A, 1, 0)                       # [N, B, 4, 4]
     bs = jnp.moveaxis(b, 1, 0)
     Ac, bc = jax.lax.associative_scan(compose, (As, bs), axis=0)
     eye = jnp.eye(4, dtype=A.dtype)
     Ilast = batched_solve(eye[None] - Ac[-1], bc[-1])    # [B, 4]
-    I = jnp.einsum('nbij,bj->nbi', Ac, Ilast) + bc
+    I = jnp.einsum('nbij,bj->nbi', Ac, Ilast, precision=_HI) + bc
     return jnp.moveaxis(I, 0, 1)
 
 
@@ -112,7 +112,8 @@ def _sweep_stokes_2d(chi7, S4, geomAxisZ, geomW, geomDs, Iupw, dj,
         IPP = Iprev[:, jPrev]
         IuwX = (1.0 - wE) * Iprev + wE * IPP
         knownUw = jnp.where(aZ, wE * IPP, IuwX)
-        bKnown = bBase + jnp.einsum('bxij,bxj->bxi', Amat, knownUw)
+        bKnown = bBase + jnp.einsum('bxij,bxj->bxi', Amat, knownUw,
+                                    precision=_HI)
         Aring = jnp.where(aZ[..., None],
                           Amat * (1.0 - w)[None, :, None, None],
                           jnp.zeros_like(Amat))

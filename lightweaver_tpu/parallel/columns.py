@@ -182,11 +182,20 @@ class ColumnBatch:
             out.append(jax.device_put(leaf, NamedSharding(mesh, spec)))
         return jax.tree_util.tree_unflatten(treedef, out)
 
+    def _params_on_mesh(self) -> Dict:
+        """The params with every leaf back on its mesh spec: the host-side
+        updates (stat_equil, PRD, the iteration's own outputs) leave
+        leaves on one device or in XLA's chosen layout, and a changed
+        input sharding would compile the iteration again."""
+        if self.mesh is not None:
+            self.params = self._shard(self.params)
+        return self.params
+
     # ------------------------------------------------------------------
     def formal_sol_gamma_matrices(self, lambdaIterate: bool = False) \
             -> IterationUpdate:
         fn = self._iter_lambda if lambdaIterate else self._iter_full
-        out = fn(self.params)
+        out = fn(self._params_on_mesh())
         if self.flatCtx is not None and self.converged.any():
             # freeze converged columns' radiation field
             mask = jnp.asarray(self.converged)[:, None, None]
@@ -357,7 +366,7 @@ class ColumnBatch:
                 dRho = jnp.maximum(dRho, jnp.max(rel, axis=(1, 2)))
                 self.params['rhoPrd'][ai][ti] = rNew
 
-            out = self._prd_fs(self.params)
+            out = self._prd_fs(self._params_on_mesh())
             mask = frozen[:, None, None]
             Jsub = self.params['J'][:, subJ]
             self.params['J'] = self.params['J'].at[:, subJ].set(

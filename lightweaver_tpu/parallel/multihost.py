@@ -1,26 +1,25 @@
 """Multi-host orchestration: jax.distributed initialisation and global
-meshes spanning a TPU slice.
+meshes spanning several hosts.
 
 The reference is single-node shared memory; its only multi-node story is
 "run MPI yourself on top" (ref: /root/reference/docs/index.rst:36-38).
 Here multi-host runs are first-class: every host launches the same
 program, calls :func:`initialize_multihost`, builds a global mesh over
-all devices in the slice, and feeds its local shard of columns into
+all devices of all processes, and feeds its local shard of columns into
 :class:`~lightweaver_tpu.parallel.columns.ColumnBatch` -- GSPMD inserts
 any needed collectives (there are none on the columns axis; wavelength
-splits reduce J/Gamma over ICI).
+splits reduce J/Gamma over the interconnect).
 
-Typical 1.5D pipeline on an N-host slice:
+Typical 1.5D pipeline on N hosts:
 
     from lightweaver_tpu.parallel import multihost as mh
-    mh.initialize_multihost()              # env-based on TPU pods
-    mesh = mh.global_mesh(nWavelength=1)   # all chips on 'columns'
+    mh.initialize_multihost('host0:1234', N, rank)
+    mesh = mh.global_mesh(nWavelength=1)   # all devices on 'columns'
     batch = ColumnBatch.from_stacked(..., mesh=mesh)
     batch.iterate()
 
-On TPU pods `jax.distributed.initialize()` discovers the coordinator
-from the environment; elsewhere pass coordinator_address/num_processes/
-process_id explicitly.
+Pass coordinator_address/num_processes/process_id explicitly unless the
+cluster environment lets `jax.distributed.initialize()` discover them.
 """
 from typing import Optional
 
@@ -36,10 +35,10 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                          **kwargs) -> None:
     """Initialise the jax.distributed runtime (idempotent).
 
-    With no arguments, uses environment/TPU-metadata autodetection --
-    the normal path on Cloud TPU pods.  A single-process call
-    (num_processes=1) is valid and turns the whole module into a no-op
-    pipeline, so driver scripts run unchanged on one host.
+    With no arguments, relies on jax.distributed's environment
+    autodetection (cluster schedulers that it knows).  A single-process
+    call (num_processes=1) is valid and turns the whole module into a
+    no-op pipeline, so driver scripts run unchanged on one host.
     """
     if num_processes == 1:
         return      # single process: nothing to coordinate

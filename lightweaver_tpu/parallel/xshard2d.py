@@ -1,4 +1,4 @@
-"""x-sharded 2D formal solver: the TPU-native replacement for the
+"""x-sharded 2D formal solver: the device-mesh replacement for the
 reference's ZPlaneDecomposition domain-decomposition hook.
 
 The reference's only spatial-decomposition story is exporting boundary
@@ -7,7 +7,7 @@ and stitching sub-domains by hand with callable BCs
 (ref: /root/reference/Source/SimdFullIterationTemplates.hpp:253-281,
 349-384).  Here the horizontal (x) axis of a 2D atmosphere is sharded
 over a device mesh and the plane-by-plane sweep runs under
-``shard_map`` with explicit collectives that ride ICI:
+``shard_map`` with explicit collectives over the device interconnect:
 
 - chi/S upwind/downwind halo columns are exchanged ONCE per sweep with
   ``lax.ppermute`` (they are static over the z scan);
@@ -299,15 +299,6 @@ def prep_xshard_geometry(geom, Nz, Nx, dtype):
     }
 
 
-def _get_shard_map():
-    try:
-        from jax import shard_map
-        return shard_map, {'check_vma': False}
-    except ImportError:                     # jax < 0.8
-        from jax.experimental.shard_map import shard_map
-        return shard_map, {'check_rep': False}
-
-
 def formal_sol_2d_xsharded_traced(chi, S, prep, Iupw, mesh,
                                   axisName='x', interp='linear',
                                   periodic=True, Ibc=None,
@@ -362,11 +353,10 @@ def formal_sol_2d_xsharded_traced(chi, S, prep, Iupw, mesh,
         return body(chiL, SL, axZL, wL, dsL, IupwL, IbcL, dwAL, dwWL,
                     dwDsL, dwZeroL, isFirstShard=isFirst)
 
-    shard_map, kw = _get_shard_map()
-    fn = shard_map(shard_body, mesh=mesh,
-                   in_specs=(specX, specX, spec2, spec2, spec2, specI,
-                             specB, spec2, spec2, spec2, spec2),
-                   out_specs=(specX, specX, specX), **kw)
+    fn = jax.shard_map(shard_body, mesh=mesh,
+                       in_specs=(specX, specX, spec2, spec2, spec2, specI,
+                                 specB, spec2, spec2, spec2, spec2),
+                       out_specs=(specX, specX, specX), check_vma=False)
 
     I_s, Psi_s, Ieff_s = fn(chiG, SG,
                             jnp.asarray(prep['axisZ']),

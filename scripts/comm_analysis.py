@@ -1,12 +1,12 @@
 """Communication analysis of the sharded column/wavelength program.
 
 Virtual CPU devices share host cores, so wall-clock 'scaling curves' on
-them measure thread contention, not ICI behaviour.  What CAN be measured
+them measure thread contention, not interconnect behaviour.  What CAN be measured
 exactly is the communication the partitioner inserts: this script
 compiles the batched MALI iteration on an (columns x wavelength) mesh,
 parses the optimised HLO, and reports every collective with its payload
 size.  Scaling efficiency on real chips is then bounded by
-(collective bytes / iteration) / (ICI bandwidth) vs compute time.
+(collective bytes / iteration) / (interconnect bandwidth) vs compute time.
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
          python scripts/comm_analysis.py

@@ -1,11 +1,8 @@
-"""Quantify the mixed-precision convergence floor per BASELINE config
-(round-4 verdict ask #5), committed as PRECISION_FLOORS_r05.json.
+"""Quantify the mixed-precision convergence floor per BASELINE config.
 
 For each of the five BASELINE.md benchmark configs, converge with the
 production default (f64, XLA path) and with the mixed fast path
-(f32 state + f64 accumulation; recurrenceMode='pallas' +
-gammaAccum='blocked' where the Mosaic sweep covers the config, plain
-XLA 'parallel' + blocked otherwise), recording:
+(f32 state + f64 accumulation, gammaAccum='blocked'), recording:
 
   - iterations run and whether the iterate_ctx_se criteria
     (dJ < 5e-3, dPops < 1e-3, Nscatter=3) were met before NmaxIter;
@@ -15,7 +12,7 @@ XLA 'parallel' + blocked otherwise), recording:
     emergent spectrum on bright rows (> 1e-3 of peak — the deep-UV
     rows where f32 state stalls carry ~1e-13 of the peak intensity).
 
-Run on the real TPU:  nohup python scripts/precision_floors.py > log &
+Run on the GPU:  python scripts/precision_floors.py [config ...] > log
 """
 import json
 import sys
@@ -138,8 +135,6 @@ def build(config, dtype, fast):
         raise ValueError(config)
     if fast:
         kw['gammaAccum'] = 'blocked'
-        if config != '5_2d_ca':
-            kw['recurrenceMode'] = 'pallas'
     spect = rs.compute_wavelength_grid()
     eqPops = rs.compute_eq_pops(atmos)
     ctx = lw.Context(atmos, spect, eqPops, **kw)
@@ -155,8 +150,7 @@ def main():
            'criteria': 'iterate_ctx_se defaults: JTol=5e-3, popsTol=1e-3,'
                        ' Nscatter=3, NmaxIter=500',
            'mixed_config': "f32 state + f64 Gamma/rate accumulation, "
-                           "gammaAccum='blocked'; recurrenceMode='pallas'"
-                           " (Mosaic sweep) on 1D Bezier-3 configs",
+                           "gammaAccum='blocked'",
            'configs': {}}
     only = sys.argv[1:] or CONFIGS
     for config in only:
@@ -179,7 +173,9 @@ def main():
             row[tag] = res
             log(config=config, tag=tag, **res)
         out['configs'][config] = row
-        p = Path(__file__).parent.parent / 'PRECISION_FLOORS_r05.json'
+        p = Path(__file__).parent.parent / 'chiprun_out' / \
+            'precision_floors.json'
+        p.parent.mkdir(exist_ok=True)
         p.write_text(json.dumps(out, indent=1))
     log(wrote=str(p))
 

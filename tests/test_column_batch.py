@@ -87,6 +87,23 @@ def test_batch_sharded_equals_unsharded():
                   / np.asarray(bU.params['J']) - 1.0).max() < 1e-8
 
 
+@pytest.mark.parametrize('meshShape', [(4, 2), (8, 1)])
+def test_sharded_batch_compiles_its_iteration_once(meshShape):
+    """stat_equil and the iteration's own outputs leave leaves on one
+    device or in XLA's layout; the batch puts them back on the mesh so
+    that every iteration reuses the first compiled program."""
+    import jax
+    height, T, vlos, vturb, ne, nH = _stacked(8, Nk=12)
+    mesh = make_mesh(nColumns=meshShape[0], nWavelength=meshShape[1],
+                     devices=jax.devices()[:8])
+    b = ColumnBatch.from_stacked(height, T, vlos, vturb, ne, nH,
+                                 _MODELS, ('Ca',), Nrays=2, mesh=mesh)
+    for _ in range(3):
+        b.formal_sol_gamma_matrices()
+        b.stat_equil()
+    assert b._iter_full._cache_size() == 1
+
+
 @pytest.mark.slow
 def test_batch_ng_and_scattering_acceleration():
     """Ng + the local scattering operator converge the batch in far

@@ -74,6 +74,18 @@ def _converge(ctx, maxIter=400):
     raise AssertionError('no convergence')
 
 
+def test_xsharded_context_compiles_its_iteration_once():
+    """The iteration and the stat-eq solve hand back J and the
+    populations sharded over x; the context feeds them back in one
+    layout, so every iteration reuses the first compiled program."""
+    ctx, _ = _make(Nz=8, mesh=_mesh(4))
+    for it in range(3):
+        ctx.formal_sol_gamma_matrices()
+        if it >= 1:
+            ctx.stat_equil()
+    assert ctx._iter_fn._cache_size() == 1
+
+
 @pytest.mark.slow
 def test_xsharded_context_converges_like_unsharded():
     """Periodic slab, BESSER interp+along-ray (the reference-default 2D

@@ -142,3 +142,37 @@ def test_w2_branches_continuous():
         w0b, w1b = w2(jnp.asarray(dtau * 1.001))
         assert abs(float(w0a) - float(w0b)) < 1e-5
         assert abs(float(w1a) - float(w1b)) < 1e-5
+
+
+def _bezier3_exact(t):
+    """(alpha, beta, gamma, delta, exp(-t)) of the closed forms in
+    40-digit decimal arithmetic."""
+    from decimal import Decimal, localcontext
+    with localcontext() as ctx:
+        ctx.prec = 40
+        t = Decimal(float(t))
+        E = (-t).exp()
+        t3 = t ** 3
+        out = ((6 - E * (6 + 6 * t + 3 * t ** 2 + t3)) / t3,
+               (6 * E - 6 + 6 * t - 3 * t ** 2 + t3) / t3,
+               3 * (2 * t - 6 + E * (6 + 4 * t + t ** 2)) / t3,
+               3 * (6 - 4 * t + t ** 2 - 2 * E * (3 + t)) / t3, E)
+        return [float(x) for x in out]
+
+
+@pytest.mark.parametrize('dtype', ['float64', 'float32'])
+@pytest.mark.parametrize('lo,hi', [(5e-2, 1.0), (1.0, 2.5), (2.5, 30.0)])
+def test_bezier3_coeffs_error_bounded_by_cancellation(dtype, lo, hi):
+    """Above the reference's Taylor threshold (5e-2) the mid-branch
+    closed forms cancel ~dt^4/4 out of O(6) terms, so their relative
+    error grows as eps/dt^4 below dt = 1 (1e-9 in f64 at 5e-2) and stays
+    a few eps above it."""
+    from lightweaver_tpu.ops.formal_solver import bezier3_coeffs
+
+    ts = np.geomspace(lo, hi, 60)
+    got = bezier3_coeffs(jnp.asarray(ts, dtype))
+    ref = np.array([_bezier3_exact(t) for t in ts]).T
+    bound = 300 * np.finfo(dtype).eps * np.maximum(1.0, ts ** -4)
+    for name, a, b in zip('abgde', got, ref):
+        err = np.abs(np.asarray(a, np.float64) - b) / np.abs(b)
+        assert np.all(err < bound), (name, float(np.max(err / bound)))

@@ -1,6 +1,5 @@
 """gammaAccum='blocked': working-dtype lambda-block partials with the
-inter-block Gamma/rate reduction in accumDtype (the XLA analogue of the
-Pallas Gamma kernel's accumulation contract, ops/pallas_gamma.py).
+inter-block Gamma/rate reduction in accumDtype.
 
 Checks (mixed precision, f32 state + f64 accum):
   * Gamma/rates/J agree with the exact-adt reduction to f32-roundoff
@@ -77,8 +76,7 @@ def test_blocked_matches_exact():
 def test_blocked_converges_mixed_precision():
     # same problem as test_mixed_precision.py's exact-adt case (Ca-only
     # active) but at the BLOCKED accumulation contract: dPops < 1e-3
-    # intact, dJ floor raised to ~8e-3 (vs ~4e-3 exact) — the same
-    # contract the Pallas Gamma scheme documents (CLAUDE.md).  Measured
+    # intact, dJ floor raised to ~8e-3 (vs ~4e-3 exact).  Measured
     # here: exact converges (dJ<5e-3, dPops<1e-3) at ~408 iterations;
     # blocked reaches dJ 7.8e-3 / dPops 5.7e-4 and holds there.
     ctx = _ctx('blocked', Nk=40, active=('Ca',))
